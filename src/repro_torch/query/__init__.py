@@ -1,0 +1,119 @@
+"""repro_torch.query — the serving plane (the port of ``repro.query``):
+materialized windowed aggregates, declarative queries at bounded
+staleness, asyncio-native watch streams.
+
+The Pinot-style read path (Fu & Soman's real-time serving tier): closed
+windows from the analytics stage are continuously folded into
+``MaterializedStore`` segments, ``QueryEngine`` answers ``AggQuery``
+over them (hot in-memory lookup, cold EventLog replay through the
+``window_reduce`` batch path, watermark-invalidated result cache,
+staleness gate), and ``QueryPlane.watch`` turns any query into an
+``async for`` stream that re-evaluates exactly when the store changes —
+no polling loop, no thread per dashboard.
+
+  store.py    MaterializedStore — per-(key, window) segments, retention
+              floor, (watermark, version) invalidation token
+  engine.py   AggQuery / QueryResult / QueryEngine / StalenessExceeded
+  (here)      QueryPlane — the bundle a pipeline mounts, wiring the
+              analytics export hook, the EventLog, the clock, dead
+              letters, tracing and the device cold scans reduce on
+"""
+from __future__ import annotations
+
+import asyncio
+from typing import AsyncIterator, Optional
+
+from repro_torch.query.engine import (
+    AGGS,
+    AggQuery,
+    QueryEngine,
+    QueryResult,
+    StalenessExceeded,
+)
+from repro_torch.query.store import MaterializedStore
+
+
+class QueryPlane:
+    """Materialized store + query engine wired to an ``AnalyticsStage``.
+
+    Construction registers ``store.on_advance`` as the stage's export
+    hook, so every closed window (live or replayed) and every watermark
+    tick flows into the serving state with no extra plumbing.
+    """
+
+    def __init__(self, analytics, *,
+                 log=None,
+                 staleness_s: Optional[float] = None,
+                 cache_entries: int = 1024,
+                 max_windows_per_key: int = 4096,
+                 clock=None, dead_letters=None, tracer=None,
+                 device="cuda", columnar_lanes: bool = False):
+        self.analytics = analytics
+        self.store = MaterializedStore(
+            max_windows_per_key=max_windows_per_key)
+        self.engine = QueryEngine(
+            self.store,
+            spec=analytics.operator.spec,
+            log=log,
+            key_fn=analytics.key_fn,
+            value_fn=analytics.value_fn,
+            time_fn=analytics.time_fn,
+            staleness_s=staleness_s,
+            cache_entries=cache_entries,
+            clock=clock,
+            dead_letters=dead_letters,
+            tracer=tracer,
+            device=device,
+            columnar_lanes=columnar_lanes)
+        analytics.add_export(self.store.on_advance)
+
+    # ---- sync surface ------------------------------------------------------
+
+    def query(self, q: AggQuery, **kw) -> QueryResult:
+        return self.engine.query(q, **kw)
+
+    def status(self) -> dict:
+        return self.engine.status()
+
+    # ---- async surface -----------------------------------------------------
+
+    async def watch(self, q: AggQuery, *,
+                    max_updates: Optional[int] = None
+                    ) -> AsyncIterator[QueryResult]:
+        """``async for result in plane.watch(q)`` — re-evaluates ``q``
+        whenever the materialized store changes and yields only when the
+        answer could differ (the store's (watermark, version) token
+        moved).  Event-driven via ``loop.call_soon_threadsafe``: no
+        polling loop, no thread per watcher.  Cancelling the iterator
+        (or exhausting ``max_updates``) detaches the listener."""
+        loop = asyncio.get_running_loop()
+        event = asyncio.Event()
+
+        def _notify() -> None:
+            # called from the pipeline thread under no locks
+            loop.call_soon_threadsafe(event.set)
+
+        self.store.add_listener(_notify)
+        last = None
+        sent = 0
+        try:
+            while max_updates is None or sent < max_updates:
+                # clear BEFORE reading state: a store change landing
+                # between query() and wait() re-sets the event, so no
+                # update is ever lost to the classic check-then-sleep race
+                event.clear()
+                token = (self.store.watermark, self.store.version)
+                if token != last:
+                    last = token
+                    yield self.query(q)
+                    sent += 1
+                    continue
+                await event.wait()
+        finally:
+            self.store.remove_listener(_notify)
+
+
+__all__ = [
+    "AGGS", "AggQuery", "MaterializedStore", "QueryEngine", "QueryPlane",
+    "QueryResult", "StalenessExceeded",
+]

@@ -1,0 +1,372 @@
+"""Declarative aggregate queries over materialized window segments.
+
+``AggQuery`` is the whole query model — channel (key prefix shorthand),
+explicit keys, a half-open time range, an optional re-bucketing
+granularity, and one aggregate function.  ``QueryEngine.query`` plans
+it in three steps:
+
+  1. *staleness gate* — if ``now - watermark`` exceeds the configured
+     bound the query is refused (``StalenessExceeded``) and dead-lettered
+     under ``query_stale``: a dashboard must never silently render data
+     older than it promised.
+  2. *cache* — results are cached by the (frozen, normalized) query;
+     an entry is valid only while the store's (watermark, version) pair
+     is unchanged, so every watermark advance or segment ingest
+     invalidates exactly the answers that could have changed.  A million
+     identical dashboard queries cost one aggregation.
+  3. *plan* — hot segments come from ``MaterializedStore.lookup`` with
+     time/key pruning; if the range dips below the store's retention
+     floor and an EventLog is attached, the cold prefix is recomputed by
+     scanning the log and pushing the events through the same
+     ``window_reduce`` batch path the replay engine uses.  Hot wins on
+     overlap: a cold aggregate is only merged for slots the hot store
+     no longer holds, so nothing double-counts.
+
+Derived aggregates (mean/stddev/rate) come from the closed-form lanes
+(count/sum/sumsq/min/max) — exactly the lanes the kernel produces, so
+hot and cold answers agree to float32 tolerance (tested).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.alerts.batch import reduce_columns, reduce_events
+from repro_torch.kernels import resolve_device
+from repro_torch.query.store import MaterializedStore, SegmentRow
+
+AGGS = ("count", "sum", "mean", "max", "min", "stddev", "rate")
+
+
+class StalenessExceeded(RuntimeError):
+    """The serving watermark lags ``now`` beyond the configured bound."""
+
+    def __init__(self, lag_s: float, bound_s: float):
+        super().__init__(
+            f"serving watermark lags now by {lag_s:.1f}s "
+            f"(> staleness bound {bound_s:.1f}s)")
+        self.lag_s = lag_s
+        self.bound_s = bound_s
+
+
+@dataclass(frozen=True)
+class AggQuery:
+    """One dashboard panel's worth of question.
+
+    ``keys`` defaults to ``(channel,)`` — the pipeline windows documents
+    by channel, so the common case needs no explicit key list.
+    ``granularity`` of None emits one point per materialized window;
+    setting it re-buckets windows into coarser points (it must be a
+    multiple-or-equal of the window size to make sense).  ``agg`` picks
+    the derived value; ``rate`` is count per granularity-second.
+    """
+
+    channel: str
+    start: float
+    end: float
+    keys: Tuple[str, ...] = ()
+    granularity: Optional[float] = None
+    agg: str = "count"
+
+    def __post_init__(self):
+        if self.agg not in AGGS:
+            raise ValueError(f"unknown agg {self.agg!r}; choose from {AGGS}")
+        if not self.end > self.start:
+            raise ValueError("query range must satisfy end > start")
+        if self.granularity is not None and self.granularity <= 0:
+            raise ValueError("granularity must be positive")
+        # normalize: sorted unique key tuple -> equal queries hash equal
+        object.__setattr__(self, "keys", tuple(sorted(set(self.keys))))
+
+    @property
+    def effective_keys(self) -> Tuple[str, ...]:
+        return self.keys if self.keys else (self.channel,)
+
+
+@dataclass
+class QueryResult:
+    query: AggQuery
+    points: List[dict]            # {"key", "start", "end", "value", "count"}
+    as_of: float                  # serving watermark when computed
+    source: str                   # "hot" | "cold" | "mixed" | "empty"
+    cached: bool = False
+
+    def values(self) -> List[float]:
+        return [p["value"] for p in self.points]
+
+
+@dataclass
+class _Bucket:
+    start: float
+    end: float
+    count: int = 0
+    sum: float = 0.0
+    sumsq: float = 0.0
+    min: float = float("inf")
+    max: float = float("-inf")
+
+    def fold_row(self, row: SegmentRow) -> None:
+        _, _, cnt, sm, sq, mn, mx = row
+        self.count += cnt
+        self.sum += sm
+        self.sumsq += sq
+        if mn < self.min:
+            self.min = mn
+        if mx > self.max:
+            self.max = mx
+
+    def value(self, agg: str, span_s: float) -> float:
+        if agg == "count":
+            return float(self.count)
+        if agg == "sum":
+            return self.sum
+        if agg == "max":
+            return self.max if self.count else 0.0
+        if agg == "min":
+            return self.min if self.count else 0.0
+        if agg == "rate":
+            return self.count / span_s if span_s > 0 else 0.0
+        mean = self.sum / self.count if self.count else 0.0
+        if agg == "mean":
+            return mean
+        # stddev (population, matching WindowAggregate.variance)
+        if self.count < 2:
+            return 0.0
+        return math.sqrt(max(0.0, self.sumsq / self.count - mean * mean))
+
+
+class QueryEngine:
+    """Plans ``AggQuery`` over hot segments + cold log replay, behind a
+    watermark-invalidated LRU result cache and a staleness gate."""
+
+    def __init__(self, store: MaterializedStore, *,
+                 spec=None,                      # WindowSpec (cold replay)
+                 log=None,                       # repro_torch.store EventLog
+                 key_fn=None, value_fn=None, time_fn=None,
+                 staleness_s: Optional[float] = None,
+                 cache_entries: int = 1024,
+                 clock=None,
+                 dead_letters=None,
+                 tracer=None,
+                 device="cuda",
+                 columnar_lanes: bool = False):
+        self.store = store
+        self.spec = spec
+        self.log = log
+        self.key_fn = key_fn or (lambda doc: str(doc.get("channel", "all")))
+        self.value_fn = value_fn or (lambda doc: 1.0)
+        self.time_fn = time_fn or (lambda doc: float(doc["published_at"]))
+        self.staleness_s = staleness_s
+        self.cache_entries = cache_entries
+        # default clock = the serving watermark itself: standalone use
+        # (no pipeline) then never trips the staleness gate
+        self.clock = clock or (lambda: self.store.watermark)
+        self.dead_letters = dead_letters
+        self.tracer = tracer
+        # where cold scans reduce: CUDA launches the window_reduce
+        # kernel (raising when there is no card), "cpu" its plain version
+        self.device = resolve_device(device)
+        # columnar cold path: scan the log's column lanes (block-stat
+        # pruned, zero per-record Python) instead of per-record decode.
+        # Lane semantics equal the pipeline's DEFAULT extractors, so
+        # this must stay False when custom key/value/time fns are in
+        # play — the pipeline opts in when it mounts a columnar store.
+        self.columnar_lanes = columnar_lanes and hasattr(log, "scan_lanes")
+        self._lock = threading.Lock()
+        # query -> (watermark, version, QueryResult)
+        self._cache: "OrderedDict[AggQuery, Tuple[float, int, QueryResult]]" \
+            = OrderedDict()
+        self.stats = {"queries": 0, "cache_hits": 0, "cache_misses": 0,
+                      "stale_rejected": 0, "cold_scans": 0, "cold_events": 0,
+                      "cold_columnar": 0}
+
+    # ---- public API --------------------------------------------------------
+
+    def query(self, q: AggQuery, *, now: Optional[float] = None,
+              use_cache: bool = True) -> QueryResult:
+        """Answer ``q``; raises ``StalenessExceeded`` when the serving
+        watermark lags ``now`` beyond the bound.  ``use_cache=False``
+        forces recomputation (benchmark baseline; results identical)."""
+        now = self.clock() if now is None else now
+        with self._lock:
+            self.stats["queries"] += 1
+            wm = self.store.watermark
+            version = self.store.version
+            lag = now - wm if wm != float("-inf") else float("inf")
+            if (self.staleness_s is not None and now != float("-inf")
+                    and lag > self.staleness_s):
+                self.stats["stale_rejected"] += 1
+                exc = StalenessExceeded(lag, self.staleness_s)
+                dl = self.dead_letters
+                if dl is not None:
+                    dl.publish(
+                        {"channel": q.channel, "agg": q.agg,
+                         "lag_s": lag, "bound_s": self.staleness_s},
+                        reason="query_stale")
+                raise exc
+            if use_cache:
+                hit = self._cache.get(q)
+                if hit is not None and hit[0] == wm and hit[1] == version:
+                    self._cache.move_to_end(q)
+                    self.stats["cache_hits"] += 1
+                    return dataclasses.replace(hit[2], cached=True)
+                self.stats["cache_misses"] += 1
+        if self.tracer is not None:
+            with self.tracer.span("query.execute",
+                                  attrs={"channel": q.channel,
+                                         "agg": q.agg}) as sp:
+                res = self._execute(q, wm)
+                sp.set("points", len(res.points))
+                sp.set("source", res.source)
+        else:
+            res = self._execute(q, wm)
+        if use_cache:
+            with self._lock:
+                self._cache[q] = (wm, version, res)
+                self._cache.move_to_end(q)
+                while len(self._cache) > self.cache_entries:
+                    self._cache.popitem(last=False)
+        return res
+
+    # ---- planning ----------------------------------------------------------
+
+    def _execute(self, q: AggQuery, as_of: float) -> QueryResult:
+        keys = q.effective_keys
+        hot = self.store.lookup(keys, q.start, q.end)
+        sources = ["hot"] if hot else []
+        cold_rows: Dict[str, List[SegmentRow]] = {}
+        if self.log is not None and q.start < self.store.floor:
+            cold_rows = self._cold_scan(q, keys, hot)
+            if cold_rows:
+                sources.append("cold")
+        if not sources:
+            source = "empty"
+        elif len(sources) == 2:
+            source = "mixed"
+        else:
+            source = sources[0]
+        points = self._bucketize(q, keys, hot, cold_rows)
+        return QueryResult(query=q, points=points, as_of=as_of,
+                           source=source)
+
+    def _cold_scan(self, q: AggQuery, keys: Sequence[str],
+                   hot: Dict[str, List[SegmentRow]]) -> Dict[str, List[SegmentRow]]:
+        """Recompute evicted windows from the EventLog via the
+        window_reduce batch path.  Hot wins: slots still materialized
+        are skipped so overlap never double-counts."""
+        if self.spec is None:
+            return {}
+        if self.tracer is not None:
+            with self.tracer.span("query.cold_scan",
+                                  attrs={"channel": q.channel}) as sp:
+                out = self._cold_scan_inner(q, keys, hot)
+                sp.set("slots", sum(len(v) for v in out.values()))
+            return out
+        return self._cold_scan_inner(q, keys, hot)
+
+    def _cold_scan_inner(self, q: AggQuery, keys: Sequence[str],
+                         hot: Dict[str, List[SegmentRow]]
+                         ) -> Dict[str, List[SegmentRow]]:
+        cold_end = min(q.end, self.store.floor)
+        # any window overlapping [q.start, cold_end) lies entirely within
+        # [q.start - extent, cold_end + extent); scanning with that slack
+        # keeps boundary windows *complete* so their lanes match a full
+        # recompute, then the slot filter below trims the overshoot
+        slack = self.spec.size_s
+        keyset = set(keys)
+        if self.columnar_lanes:
+            # columnar route: block-stat-pruned lane scan, then the
+            # vectorized packer — no per-record Python anywhere
+            lanes = self.log.scan_lanes(ts_min=q.start - slack,
+                                        ts_max=cold_end + slack,
+                                        keys=keys)
+            self.stats["cold_scans"] += 1
+            self.stats["cold_events"] += lanes.count
+            self.stats["cold_columnar"] += 1
+            if lanes.count == 0:
+                return {}
+            aggs = reduce_columns(lanes.ts, lanes.key_codes, lanes.values,
+                                  lanes.key_vocab, self.spec,
+                                  device=self.device, with_min=True)
+        else:
+            events = []
+            for _off, payload in self.log.scan():
+                doc = payload.get("doc", payload) \
+                    if isinstance(payload, dict) else payload
+                try:
+                    key = self.key_fn(doc)
+                    if key not in keyset:
+                        continue
+                    t = self.time_fn(doc)
+                except (AttributeError, KeyError, TypeError, ValueError):
+                    continue               # non-document payloads in the log
+                if q.start - slack <= t < cold_end + slack:
+                    events.append((key, t, self.value_fn(doc)))
+            self.stats["cold_scans"] += 1
+            self.stats["cold_events"] += len(events)
+            if not events:
+                return {}
+            aggs = reduce_events(events, self.spec,
+                                 device=self.device, with_min=True)
+        hot_slots = {(k, row[0], row[1])
+                     for k, rows in hot.items() for row in rows}
+        out: Dict[str, List[SegmentRow]] = {}
+        for agg in aggs:
+            if agg.window_end <= q.start or agg.window_start >= cold_end:
+                continue
+            if agg.window_start >= self.store.floor:
+                continue                   # hot store owns this region
+            if (agg.key, agg.window_start, agg.window_end) in hot_slots:
+                continue                   # hot wins on overlap
+            out.setdefault(agg.key, []).append(
+                (agg.window_start, agg.window_end, agg.count, agg.sum,
+                 agg.sumsq, agg.min, agg.max))
+        return out
+
+    def _bucketize(self, q: AggQuery, keys: Sequence[str],
+                   hot: Dict[str, List[SegmentRow]],
+                   cold: Dict[str, List[SegmentRow]]) -> List[dict]:
+        g = q.granularity
+        points: List[dict] = []
+        for key in keys:
+            rows = list(cold.get(key, ())) + list(hot.get(key, ()))
+            if not rows:
+                continue
+            buckets: Dict[float, _Bucket] = {}
+            for row in rows:
+                if g is None:
+                    bs, be = row[0], row[1]
+                else:
+                    bs = math.floor(row[0] / g) * g
+                    be = bs + g
+                b = buckets.get(bs)
+                if b is None:
+                    b = buckets[bs] = _Bucket(start=bs, end=be)
+                b.fold_row(row)
+            for bs in sorted(buckets):
+                b = buckets[bs]
+                span_s = b.end - b.start
+                points.append({"key": key, "start": b.start, "end": b.end,
+                               "value": b.value(q.agg, span_s),
+                               "count": b.count})
+        points.sort(key=lambda p: (p["start"], p["key"]))
+        return points
+
+    # ---- status ------------------------------------------------------------
+
+    def cache_len(self) -> int:
+        with self._lock:
+            return len(self._cache)
+
+    def status(self) -> dict:
+        with self._lock:
+            stats = dict(self.stats)
+            entries = len(self._cache)
+        return {**stats,
+                "cache_entries": entries,
+                "staleness_s": self.staleness_s,
+                **self.store.status()}

@@ -1,0 +1,131 @@
+"""repro_torch.store — the durability plane (the port of
+``repro.store``): durable event log, dead-letter journal, and the replay
+engine that unifies the batch and live paths.
+
+AlertMix's argument is against the "too late architecture": absorb
+multi-source streams NOW, and never lose what could not be processed in
+time.  Before this plane existed, dead-lettered and late records were
+only counted — a backend outage permanently dropped data.  Now:
+
+  EventLog           append-only, segmented, checksummed jsonl log with
+                     a manifest; size/age segment roll; crash-tolerant
+                     reopen that truncates torn tails  (segment_log.py)
+  DeadLetterJournal  persists every DeadLettersListener.publish record
+                     with its reason taxonomy; durable per-reason
+                     replay cursors                    (journal.py)
+  ReplayEngine       drains journal/log backlogs — documents re-emitted
+                     through the existing delivery stack once backends
+                     are healthy (dedup-idempotent), events re-
+                     aggregated through the window_reduce batch path
+                     into the
+                     live RuleEngine state              (replay.py)
+  StorePlane         the bundle of the three over one directory
+                     (this module)
+  columnar/          the columnar store plane: binary column blocks for
+                     sealed segments, keyed compaction, bytes/age
+                     retention, tiered offload — ``columnar=True``
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from repro_torch.kernels import resolve_device
+from repro_torch.store.columnar import ColumnarEventLog, LocalDirObjectStore
+from repro_torch.store.journal import DeadLetterJournal, json_safe
+from repro_torch.store.replay import ReplayEngine
+from repro_torch.store.segment_log import CorruptSegmentError, EventLog
+
+
+class StorePlane:
+    """Durability bundle: one document EventLog (``<dir>/documents``) +
+    one DeadLetterJournal (``<dir>/dead_letters``) + a ReplayEngine
+    wired to both.  A pipeline tees every accepted document into the
+    log (``append_documents``), routes every dead letter into the
+    journal, and replays backlogs through ``replay``; ``device`` is where
+    the replay's batch reduction runs."""
+
+    def __init__(self, dir_path: str, *, segment_bytes: int = 1 << 20,
+                 segment_age_s: Optional[float] = None,
+                 fsync: bool = False, analytics=None,
+                 replay_dedup_window: int = 1 << 16, device="cuda",
+                 columnar: bool = False, block_rows: int = 2048,
+                 compact_interval_s: Optional[float] = None,
+                 compact_head_segments: int = 2,
+                 retention_max_bytes: Optional[int] = None,
+                 retention_max_age_s: Optional[float] = None,
+                 offload_dir: Optional[str] = None,
+                 offload_keep_local: int = 2):
+        self.device = resolve_device(device)   # raise before opening files
+        self.dir = dir_path
+        self.columnar = columnar
+        if columnar:
+            self.log = ColumnarEventLog(
+                os.path.join(dir_path, "documents"),
+                segment_bytes=segment_bytes, segment_age_s=segment_age_s,
+                fsync=fsync, block_rows=block_rows,
+                compact_interval_s=compact_interval_s,
+                compact_head_segments=compact_head_segments,
+                retention_max_bytes=retention_max_bytes,
+                retention_max_age_s=retention_max_age_s,
+                object_store=(None if offload_dir is None
+                              else LocalDirObjectStore(offload_dir)),
+                offload_keep_local=offload_keep_local)
+        else:
+            self.log = EventLog(os.path.join(dir_path, "documents"),
+                                segment_bytes=segment_bytes,
+                                segment_age_s=segment_age_s, fsync=fsync)
+        self.journal = DeadLetterJournal(
+            os.path.join(dir_path, "dead_letters"),
+            segment_bytes=segment_bytes, fsync=fsync)
+        self.replay = ReplayEngine(
+            journal=self.journal, log=self.log, analytics=analytics,
+            dedup_window=replay_dedup_window, device=self.device)
+
+    def append_documents(self, batch) -> None:
+        """Tee accepted ``(doc_id, doc)`` records into the durable log."""
+        self.log.append([{"id": doc_id, "doc": doc}
+                         for doc_id, doc in batch])
+
+    def tick(self, now: float) -> None:
+        self.log.tick(now)
+        self.journal.tick(now)
+
+    def status(self) -> dict:
+        """Appended/replayed/pending bytes + segments, per component —
+        the ``Metrics.store`` payload."""
+        log = self.log.status()
+        journal = self.journal.status()
+        pending = self.journal.pending()
+        out = {
+            "appended_records": log["appended_records"],
+            "appended_bytes": log["appended_bytes"],
+            "segments": log["segments"],
+            "journal_records": journal["log"]["appended_records"],
+            "journal_bytes": journal["log"]["appended_bytes"],
+            "journal_segments": journal["log"]["segments"],
+            "pending_replay": pending,
+            "pending_replay_records": sum(pending.values()),
+            "replayed_records": self.replay.stats["replayed_records"],
+            "replay": dict(self.replay.stats),
+        }
+        if self.columnar:
+            out["columnar"] = log["columnar"]
+        return out
+
+    def close(self) -> None:
+        self.log.close()
+        self.journal.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+
+__all__ = [
+    "ColumnarEventLog", "CorruptSegmentError", "DeadLetterJournal",
+    "EventLog", "LocalDirObjectStore", "ReplayEngine", "StorePlane",
+    "json_safe",
+]

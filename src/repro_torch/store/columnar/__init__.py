@@ -1,0 +1,24 @@
+"""Columnar store plane (`repro_torch.store.columnar`).
+
+The durable log's fast half: sealed segments live as binary columnar
+blocks (typed ts/key/channel/doc_id/value lanes, block checksums,
+min/max-ts + key-range stats for pruned scans) while the active tail
+stays JSON; keyed compaction (keep-last-per-doc-id), bytes/age
+retention, and tiered offload to an object store all ride ``tick``.
+
+    ColumnarEventLog     drop-in EventLog with columnar sealing +
+                         maintenance; ``scan_lanes()`` feeds the batch
+                         kernel path with zero per-record Python
+    Lanes                the column-array bundle scan_lanes returns
+    LocalDirObjectStore  the reference offload backend
+"""
+from .blocks import (Block, CorruptBlockError, default_key, encode_block,
+                     encode_file, iter_blocks)
+from .log import ColumnarEventLog, Lanes
+from .tiering import LocalDirObjectStore, ObjectStore, ObjectStoreError
+
+__all__ = [
+    "Block", "ColumnarEventLog", "CorruptBlockError", "Lanes",
+    "LocalDirObjectStore", "ObjectStore", "ObjectStoreError",
+    "default_key", "encode_block", "encode_file", "iter_blocks",
+]

@@ -1,0 +1,400 @@
+"""Binary columnar block format for SEALED segments (``.colb``).
+
+A ``.colb`` file is a sequence of self-describing blocks:
+
+    +-------+------------+--------------+------------------+
+    | MAGIC | u32 hlen   | header json  | payload (hlen..) |
+    +-------+------------+--------------+------------------+
+
+The header carries the row count, the offset range, a CRC32 over the
+payload bytes, block stats (min/max event-time and key range — the
+basis for pruned scans), and per-column descriptors.  Column kinds:
+
+    f8 / i8   little-endian float64 / int64 lanes (numpy-decodable)
+    u4dict    u32 codes into a per-block vocabulary (strings)
+    str       u32 lengths + concatenated utf-8 bytes
+    json      one json array for columns that resist a typed lane
+
+Partially-present columns carry a u8 presence mask.  Two reserved
+lanes are always written: ``_off`` (the record offsets — compaction
+makes them sparse) and ``_key`` (the pipeline's aggregation key,
+``doc.get("key", doc.get("channel", "all"))``, dict-encoded so scans
+get key codes without touching the documents).  Payload documents use
+the ``{"id": ..., "doc": {...}}`` shape the store plane appends; doc
+fields become ``d:<field>`` columns and anything else falls into a
+``_raw`` json column, so reconstruction is lossless.
+"""
+from __future__ import annotations
+
+import json
+import zlib
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+MAGIC = b"ACB1"
+
+Record = Tuple[int, object]          # (offset, payload)
+
+
+class CorruptBlockError(Exception):
+    """A block failed its checksum or structural validation."""
+
+
+def default_key(doc: dict) -> str:
+    """The pipeline's aggregation key — mirrors AnalyticsStage."""
+    return str(doc.get("key", doc.get("channel", "all")))
+
+
+def _classify(values: Sequence[object]) -> str:
+    """Pick the narrowest lane that holds every present value."""
+    kind = "i8"
+    for v in values:
+        if isinstance(v, bool):
+            return "json"
+        if isinstance(v, int):
+            if not (-(1 << 62) < v < (1 << 62)):
+                return "json"
+            continue
+        if isinstance(v, float):
+            kind = "f8"
+            continue
+        if isinstance(v, str):
+            return "dict" if all(isinstance(x, str) for x in values) \
+                else "json"
+        return "json"
+    return kind
+
+
+def encode_block(records: Sequence[Record], *,
+                 key_of: Callable[[dict], str] = default_key) -> bytes:
+    """Encode one block of ``(offset, payload)`` records."""
+    rows = len(records)
+    if rows == 0:
+        raise ValueError("cannot encode an empty block")
+    offs = np.array([o for o, _ in records], dtype="<i8")
+
+    # split conforming {"id", "doc"} payloads from everything else
+    docs: List[Optional[dict]] = []
+    ids: List[Optional[str]] = []
+    raws: List[object] = [None] * rows
+    raw_mask = np.zeros(rows, dtype=np.uint8)
+    for i, (_, p) in enumerate(records):
+        if (isinstance(p, dict) and set(p) == {"id", "doc"}
+                and isinstance(p["doc"], dict)
+                and isinstance(p["id"], str)):
+            docs.append(p["doc"])
+            ids.append(p["id"])
+        else:
+            docs.append(None)
+            ids.append(None)
+            raws[i] = p
+            raw_mask[i] = 1
+
+    # gather doc fields into columns
+    fields: dict = {}                 # name -> (values, mask)
+    for i, doc in enumerate(docs):
+        if doc is None:
+            continue
+        for k, v in doc.items():
+            col = fields.get(k)
+            if col is None:
+                col = ([None] * rows, np.zeros(rows, dtype=np.uint8))
+                fields[k] = col
+            col[0][i] = v
+            col[1][i] = 1
+
+    keys = ["" if d is None else key_of(d) for d in docs]
+
+    payload = bytearray()
+    cols: List[dict] = []
+
+    def emit(name: str, kind: str, data: bytes, *,
+             mask: Optional[np.ndarray] = None, extra: dict = None):
+        desc = {"name": name, "kind": kind, "off": len(payload),
+                "n": len(data)}
+        payload.extend(data)
+        if mask is not None and int(mask.sum()) != rows:
+            desc["mask"] = len(payload)
+            payload.extend(mask.tobytes())
+        if extra:
+            desc.update(extra)
+        cols.append(desc)
+
+    def emit_dict(name: str, values: Sequence[str],
+                  mask: Optional[np.ndarray]):
+        vocab: List[str] = []
+        index: dict = {}
+        codes = np.empty(rows, dtype="<u4")
+        for i, s in enumerate(values):
+            c = index.get(s)
+            if c is None:
+                c = index[s] = len(vocab)
+                vocab.append(s)
+            codes[i] = c
+        emit(name, "dict", codes.tobytes(), mask=mask,
+             extra={"vocab": vocab})
+
+    emit("_off", "i8", offs.tobytes())
+    emit_dict("_key", keys, None)
+    if int(raw_mask.sum()):
+        emit("_raw", "json",
+             json.dumps(raws, separators=(",", ":")).encode("utf-8"),
+             mask=raw_mask)
+    if any(i is not None for i in ids):
+        id_vals = ["" if s is None else s for s in ids]
+        lens = np.array([len(s.encode("utf-8")) for s in id_vals],
+                        dtype="<u4")
+        data = lens.tobytes() + "".join(id_vals).encode("utf-8")
+        emit("id", "str", data, mask=1 - raw_mask)
+
+    for name in sorted(fields):
+        values, mask = fields[name]
+        present = [v for v, m in zip(values, mask) if m]
+        kind = _classify(present)
+        if kind == "i8":
+            arr = np.array([0 if v is None else v for v in values],
+                           dtype="<i8")
+            emit("d:" + name, "i8", arr.tobytes(), mask=mask)
+        elif kind == "f8":
+            arr = np.array([0.0 if v is None else float(v) for v in values],
+                           dtype="<f8")
+            emit("d:" + name, "f8", arr.tobytes(), mask=mask)
+        elif kind == "dict":
+            emit_dict("d:" + name, ["" if v is None else v for v in values],
+                      mask)
+        else:
+            emit("d:" + name, "json",
+                 json.dumps(values, separators=(",", ":")).encode("utf-8"),
+                 mask=mask)
+
+    # block stats: event-time + key range, for pruned scans
+    ts_vals = [d["published_at"] for d in docs
+               if d is not None and isinstance(d.get("published_at"),
+                                               (int, float))
+               and not isinstance(d.get("published_at"), bool)]
+    real_keys = [k for k, d in zip(keys, docs) if d is not None]
+    stats = {
+        "min_ts": float(min(ts_vals)) if ts_vals else None,
+        "max_ts": float(max(ts_vals)) if ts_vals else None,
+        "min_key": min(real_keys) if real_keys else None,
+        "max_key": max(real_keys) if real_keys else None,
+    }
+
+    body = bytes(payload)
+    header = {"rows": rows, "first": int(offs[0]), "last": int(offs[-1]),
+              "plen": len(body), "crc": zlib.crc32(body),
+              "stats": stats, "cols": cols}
+    hjson = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    return MAGIC + len(hjson).to_bytes(4, "little") + hjson + body
+
+
+class Block:
+    """One decoded (or header-only) block."""
+
+    __slots__ = ("header", "_payload", "_cols")
+
+    def __init__(self, header: dict, payload: Optional[bytes]):
+        self.header = header
+        self._payload = payload
+        self._cols = {c["name"]: c for c in header["cols"]}
+
+    @property
+    def rows(self) -> int:
+        return self.header["rows"]
+
+    @property
+    def first(self) -> int:
+        return self.header["first"]
+
+    @property
+    def last(self) -> int:
+        return self.header["last"]
+
+    @property
+    def stats(self) -> dict:
+        return self.header["stats"]
+
+    def _mask(self, desc: dict) -> Optional[np.ndarray]:
+        off = desc.get("mask")
+        if off is None:
+            return None
+        return np.frombuffer(self._payload, dtype=np.uint8,
+                             count=self.rows, offset=off).astype(bool)
+
+    def column(self, name: str):
+        """-> (kind, values, mask) — numpy array for f8/i8, (codes,
+        vocab) for dict, list for str/json; None if absent."""
+        desc = self._cols.get(name)
+        if desc is None:
+            return None
+        kind, off, n = desc["kind"], desc["off"], desc["n"]
+        mask = self._mask(desc)
+        if kind in ("f8", "i8"):
+            dt = "<f8" if kind == "f8" else "<i8"
+            arr = np.frombuffer(self._payload, dtype=dt, count=self.rows,
+                                offset=off)
+            return kind, arr, mask
+        if kind == "dict":
+            codes = np.frombuffer(self._payload, dtype="<u4",
+                                  count=self.rows, offset=off)
+            return kind, (codes, desc["vocab"]), mask
+        if kind == "str":
+            lens = np.frombuffer(self._payload, dtype="<u4",
+                                 count=self.rows, offset=off)
+            raw = bytes(self._payload[off + 4 * self.rows: off + n])
+            ends = np.cumsum(lens)
+            starts = ends - lens
+            vals = [raw[s:e].decode("utf-8")
+                    for s, e in zip(starts.tolist(), ends.tolist())]
+            return kind, vals, mask
+        # json
+        vals = json.loads(bytes(self._payload[off:off + n]).decode("utf-8"))
+        return kind, vals, mask
+
+    def offsets(self) -> np.ndarray:
+        return self.column("_off")[1]
+
+    # ---- typed lanes for the batch path ---------------------------------
+    def lane_ts(self) -> np.ndarray:
+        """Event-time lane (float64; NaN where absent)."""
+        col = self.column("d:published_at")
+        if col is None:
+            return np.full(self.rows, np.nan)
+        kind, vals, mask = col
+        if kind in ("f8", "i8"):
+            out = np.asarray(vals, dtype=np.float64)
+        else:
+            out = np.array([float(v) if isinstance(v, (int, float))
+                            and not isinstance(v, bool) else np.nan
+                            for v in vals], dtype=np.float64)
+        if mask is not None:
+            out = np.where(mask, out, np.nan)
+        return out
+
+    def lane_value(self) -> np.ndarray:
+        """Value lane (float64; the pipeline's default value is 1.0)."""
+        col = self.column("d:value")
+        if col is None:
+            return np.ones(self.rows)
+        kind, vals, mask = col
+        if kind in ("f8", "i8"):
+            out = np.asarray(vals, dtype=np.float64)
+        else:
+            out = np.array([float(v) if isinstance(v, (int, float))
+                            and not isinstance(v, bool) else 1.0
+                            for v in vals], dtype=np.float64)
+        if mask is not None:
+            out = np.where(mask, out, 1.0)
+        return out
+
+    def lane_key(self) -> Tuple[np.ndarray, List[str]]:
+        """Aggregation-key lane: (u32 codes, vocab)."""
+        _, (codes, vocab), _ = self.column("_key")
+        return codes, vocab
+
+    def ids(self) -> List[Optional[str]]:
+        """doc_id per row (None for raw rows) — the compaction key."""
+        col = self.column("id")
+        if col is None:
+            return [None] * self.rows
+        _, vals, mask = col
+        if mask is None:
+            return list(vals)
+        return [v if m else None for v, m in zip(vals, mask)]
+
+    # ---- full-fidelity reconstruction -----------------------------------
+    def records(self) -> List[Record]:
+        offs = self.offsets().tolist()
+        out: List[Record] = [None] * self.rows  # type: ignore
+        raw = self.column("_raw")
+        if raw is not None:
+            _, rvals, rmask = raw
+            for i in range(self.rows):
+                if rmask is None or rmask[i]:
+                    out[i] = (offs[i], rvals[i])
+        idc = self.column("id")
+        if idc is not None:
+            _, ids, idmask = idc
+            fields = []
+            for desc in self.header["cols"]:
+                name = desc["name"]
+                if not name.startswith("d:"):
+                    continue
+                kind, vals, mask = self.column(name)
+                if kind in ("f8", "i8"):
+                    vals = vals.tolist()
+                elif kind == "dict":
+                    codes, vocab = vals
+                    vals = [vocab[c] for c in codes.tolist()]
+                fields.append((name[2:], vals, mask))
+            for i in range(self.rows):
+                if out[i] is not None:
+                    continue
+                doc = {}
+                for fname, vals, mask in fields:
+                    if mask is None or mask[i]:
+                        doc[fname] = vals[i]
+                out[i] = (offs[i], {"id": ids[i], "doc": doc})
+        return out
+
+
+def iter_blocks(data: bytes, *, want=None,
+                verify: bool = True) -> Iterator[Block]:
+    """Iterate blocks in ``data``.  ``want(header) -> bool`` prunes a
+    block before its payload is touched or checksummed — pruned blocks
+    are skipped entirely (the caller counts them from the headers)."""
+    pos, n = 0, len(data)
+    while pos < n:
+        if data[pos:pos + 4] != MAGIC:
+            raise CorruptBlockError(
+                f"bad block magic at byte {pos}")
+        hlen = int.from_bytes(data[pos + 4:pos + 8], "little")
+        hstart = pos + 8
+        try:
+            header = json.loads(data[hstart:hstart + hlen].decode("utf-8"))
+        except Exception as e:
+            raise CorruptBlockError(f"bad block header at byte {pos}: {e}")
+        pstart = hstart + hlen
+        pend = pstart + header["plen"]
+        if pend > n:
+            raise CorruptBlockError(
+                f"truncated block payload at byte {pos}")
+        if want is None or want(header):
+            payload = data[pstart:pend]
+            if verify and zlib.crc32(payload) != header["crc"]:
+                raise CorruptBlockError(
+                    f"block checksum mismatch at byte {pos} "
+                    f"(offsets {header['first']}..{header['last']})")
+            yield Block(header, payload)
+        pos = pend
+
+
+def encode_file(records: Sequence[Record], *, block_rows: int,
+                key_of: Callable[[dict], str] = default_key) -> bytes:
+    """Encode records into a whole ``.colb`` file body."""
+    out = bytearray()
+    for i in range(0, len(records), block_rows):
+        out.extend(encode_block(records[i:i + block_rows], key_of=key_of))
+    return bytes(out)
+
+
+def file_stats(data: bytes) -> dict:
+    """Header-only sweep: total rows + merged min/max ts over a file."""
+    rows, min_ts, max_ts = 0, None, None
+    pos, n = 0, len(data)
+    while pos < n:
+        if data[pos:pos + 4] != MAGIC:
+            raise CorruptBlockError(f"bad block magic at byte {pos}")
+        hlen = int.from_bytes(data[pos + 4:pos + 8], "little")
+        header = json.loads(data[pos + 8:pos + 8 + hlen].decode("utf-8"))
+        rows += header["rows"]
+        st = header["stats"]
+        if st["min_ts"] is not None:
+            min_ts = st["min_ts"] if min_ts is None \
+                else min(min_ts, st["min_ts"])
+        if st["max_ts"] is not None:
+            max_ts = st["max_ts"] if max_ts is None \
+                else max(max_ts, st["max_ts"])
+        pos = pos + 8 + hlen + header["plen"]
+    return {"rows": rows, "min_ts": min_ts, "max_ts": max_ts}

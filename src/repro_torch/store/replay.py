@@ -1,0 +1,315 @@
+"""ReplayEngine — drains durable backlogs back into the platform,
+unifying the batch and live paths.
+
+Two backlog families, two drain routes:
+
+  delivery_failed:<backend>   journaled ``(doc_id, doc)`` records are
+      re-emitted through the backend's EXISTING delivery envelope (the
+      per-backend RetryingSink inside the pipeline's Batching -> FanOut
+      -> Retrying stack) once the backend reports healthy.  A
+      ``repro_torch.core.dedup.DedupWindow`` over the (reason, doc-id)
+      content hash makes replay after PARTIAL delivery idempotent: records the
+      terminal sink already accepted are skipped on the next pass, and
+      a hash is only registered once its batch verifiably landed
+      (terminal emitted-counter delta), so a mid-replay outage never
+      poisons the dedup window.
+
+  late_event / raw log ranges   event payloads are packed through the
+      hardware-speed batch path — ``alerts.batch.pack_events`` ->
+      the ``window_reduce`` kernel -> ``WindowAggregate``s — and
+      evaluated by the SAME RuleEngine instance the live
+      ``WindowOperator`` feeds, so replayed windows flow into the same
+      rule state/history and the same AlertSink subscribers (parity
+      with the live path is test-enforced).
+
+Progress is durable: each reason's journal cursor advances only past
+verifiably delivered/processed records, so a crash mid-replay resumes
+where it left off instead of starting over or skipping ahead.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.alerts.batch import reduce_columns, reduce_events
+from repro_torch.core.dedup import DedupWindow, content_hash
+from repro_torch.kernels import resolve_device
+from repro_torch.obs import StageProfiler
+
+Event = Tuple[str, float, float]          # (key, event_time, value)
+
+
+class ReplayEngine:
+    """Drains journal/log backlogs; see module docstring.
+
+    ``analytics`` is the live ``repro_torch.alerts.AnalyticsStage`` — its
+    WindowSpec, key/time/value extractors, and RuleEngine are reused so
+    batch-replayed aggregates land in the same state the live operator
+    feeds.  ``journal`` is a ``DeadLetterJournal``; ``log`` the document
+    ``EventLog`` (payloads ``{"id": ..., "doc": {...}}``).  ``device``
+    is where the batch reduction runs: a CUDA device launches the
+    ``window_reduce`` kernel (and raises when there is no card), ``"cpu"``
+    runs its plain PyTorch version.
+    """
+
+    def __init__(self, *, journal=None, log=None, analytics=None,
+                 dedup_window: int = 1 << 16, device="cuda",
+                 columnar_lanes: Optional[bool] = None):
+        self.journal = journal
+        self.log = log
+        self.analytics = analytics
+        # columnar fast path: when the log is a ColumnarEventLog,
+        # ``replay_log`` reads column lanes instead of per-record
+        # payloads.  Lane semantics equal the pipeline's DEFAULT
+        # key/time/value extractors — pass ``columnar_lanes=False`` if
+        # this engine's AnalyticsStage uses custom extractors.  None
+        # (the default) auto-enables iff the log grows ``scan_lanes``.
+        self.columnar_lanes = columnar_lanes
+        self.dedup = DedupWindow(dedup_window)
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self.stats = {"replays": 0, "replayed_records": 0, "deduped": 0,
+                      "failed_batches": 0, "events_replayed": 0,
+                      "aggregates": 0, "alerts": 0}
+        # always-on per-stage wall-clock breakdown of the batch-replay
+        # chain (decode -> pack_events -> kernel -> unpack -> state_merge
+        # [-> redeliver]); surfaced via status()["profile"]
+        self.profiler = StageProfiler("replay")
+        # optional tracer (``span(name, attrs=...)`` context manager)
+        self.tracer = None
+
+    # ---- route 1: re-deliver dead-lettered documents ------------------------
+    def replay_dead_letters(self, reason: str, sink, *, batch: int = 256,
+                            max_records: Optional[int] = None) -> dict:
+        """Re-emit journaled records for one ``delivery_failed:*`` reason
+        through ``sink`` (typically that backend's RetryingSink envelope).
+
+        Delivery is verified per batch at ``sink.terminal`` (the
+        emitted-counter delta): only landed batches advance the durable
+        cursor and register dedup hashes; the first failed batch stops
+        the pass (the backend regressed — wait for the next health
+        flip).  Returns {"replayed", "deduped", "stopped_early"}.
+        """
+        if self.journal is None:
+            raise RuntimeError("no DeadLetterJournal attached")
+        # Emit at the sink's TERMINAL, not at a wrapping envelope: a
+        # RetryingSink would absorb a failure by PARKING the batch for
+        # later redelivery — invisible to the cursor, so the next replay
+        # pass would send the same records again (double delivery).  At
+        # the terminal a failure surfaces now (exception / missing
+        # counter delta) and the pass simply stops until the next
+        # health flip.
+        target = sink.terminal
+        replayed = deduped = 0
+        stopped = False
+        # index-first: no disk touched when the reason has no backlog,
+        # and the scan starts at its oldest pending record rather than
+        # wading through every other reason's earlier records
+        cursor = self.journal.first_pending(reason)
+        if cursor is None:
+            return {"replayed": 0, "deduped": 0, "stopped_early": False}
+        pend: List = []
+        pend_hashes: List[str] = []
+        pend_last = cursor
+
+        def _land() -> bool:
+            nonlocal replayed
+            if not pend:
+                self.journal.advance(reason, pend_last)
+                return True
+            before = target.counters.emitted
+            try:
+                target.emit(list(pend))
+            except Exception:
+                pass                      # verified via the terminal delta
+            if target.counters.emitted - before != len(pend):
+                return False
+            for h in pend_hashes:
+                self.dedup.seen_before(h)  # register as delivered
+            replayed += len(pend)
+            self.journal.advance(reason, pend_last)
+            pend.clear()
+            pend_hashes.clear()
+            return True
+
+        with self.profiler.stage("redeliver"):
+            for off, record in self.journal.scan(reason, cursor):
+                if (max_records is not None
+                        and replayed + len(pend) >= max_records):
+                    break
+                rec = record
+                if isinstance(rec, list):  # (doc_id, doc) came back as a list
+                    rec = tuple(rec)
+                # dedup is scoped PER REASON and keyed by full record
+                # content: two backends that dead-lettered the same doc each
+                # get their own replay, and a doc that dead-letters AGAIN
+                # later (new content, new journal record) is not mistaken
+                # for the already-replayed earlier one — only a repeat pass
+                # over the identical journal record is a duplicate
+                h = content_hash(f"{reason}|" + json.dumps(
+                    record, sort_keys=True, default=repr))
+                if self.dedup.contains(h):  # peek; register only on landing
+                    deduped += 1
+                    pend_last = off + 1
+                    continue
+                pend.append(rec)
+                pend_hashes.append(h)
+                pend_last = off + 1
+                if len(pend) >= batch:
+                    if not _land():
+                        stopped = True
+                        break
+            if not stopped:
+                stopped = not _land()
+        with self._lock:
+            self.stats["replays"] += 1
+            self.stats["replayed_records"] += replayed
+            self.stats["deduped"] += deduped
+            self.stats["failed_batches"] += int(stopped)
+        return {"replayed": replayed, "deduped": deduped,
+                "stopped_early": stopped}
+
+    # ---- route 2: batch-path aggregation into the live rule engine ----------
+    def replay_events(self, events: Sequence[Event], *,
+                      watermark: Optional[float] = None) -> tuple:
+        """Run raw events through pack_events -> window_reduce -> the
+        live RuleEngine.  Returns (aggregates, fired alerts).  Sessions
+        have no static slot layout — use the incremental operator."""
+        if self.analytics is None:
+            raise RuntimeError("no AnalyticsStage attached")
+        spec = self.analytics.operator.spec
+        events = list(events)
+        ctx = (contextlib.nullcontext() if self.tracer is None
+               else self.tracer.span("replay.events",
+                                     attrs={"events": len(events)}))
+        with ctx:
+            aggs = reduce_events(events, spec, device=self.device,
+                                 profiler=self.profiler)
+            wm = watermark if watermark is not None \
+                else self.analytics.operator.watermark
+            for a in aggs:
+                a.closed_at_watermark = wm
+            with self.profiler.stage("state_merge"):
+                fired = self.analytics.engine.process(aggs)
+                # replayed windows bypass AnalyticsStage.advance, so feed
+                # the stage's export hooks (e.g. the repro_torch.query
+                # materialized store) here — late backfill merges into
+                # serving state instead of silently diverging from it
+                export = getattr(self.analytics, "export_closed", None)
+                if export is not None:
+                    export(aggs, wm)
+        with self._lock:
+            self.stats["events_replayed"] += len(events)
+            self.stats["aggregates"] += len(aggs)
+            self.stats["alerts"] += len(fired)
+        return aggs, fired
+
+    def replay_columns(self, lanes, *,
+                       watermark: Optional[float] = None) -> tuple:
+        """Run column lanes (``ColumnarEventLog.scan_lanes`` output)
+        through pack_columns -> window_reduce -> the live RuleEngine —
+        the zero-per-record-Python twin of ``replay_events``."""
+        if self.analytics is None:
+            raise RuntimeError("no AnalyticsStage attached")
+        spec = self.analytics.operator.spec
+        ctx = (contextlib.nullcontext() if self.tracer is None
+               else self.tracer.span("replay.columns",
+                                     attrs={"events": lanes.count}))
+        with ctx:
+            aggs = reduce_columns(lanes.ts, lanes.key_codes, lanes.values,
+                                  lanes.key_vocab, spec,
+                                  device=self.device,
+                                  profiler=self.profiler)
+            wm = watermark if watermark is not None \
+                else self.analytics.operator.watermark
+            for a in aggs:
+                a.closed_at_watermark = wm
+            with self.profiler.stage("state_merge"):
+                fired = self.analytics.engine.process(aggs)
+                export = getattr(self.analytics, "export_closed", None)
+                if export is not None:
+                    export(aggs, wm)
+        with self._lock:
+            self.stats["events_replayed"] += lanes.count
+            self.stats["aggregates"] += len(aggs)
+            self.stats["alerts"] += len(fired)
+        return aggs, fired
+
+    def replay_log(self, from_offset: int = 0, *,
+                   watermark: Optional[float] = None,
+                   columnar: Optional[bool] = None) -> dict:
+        """Replay a document-log range through the batch path (the
+        backfill read of the unified log: same records the live path
+        consumed, re-aggregated at kernel speed).  On a columnar log
+        the scan itself is columnar — sealed segments decode straight
+        into numpy lanes, no per-record Python (``columnar`` overrides
+        the engine-level ``columnar_lanes`` gate)."""
+        if self.log is None:
+            raise RuntimeError("no EventLog attached")
+        use = columnar if columnar is not None else (
+            self.columnar_lanes if self.columnar_lanes is not None
+            else hasattr(self.log, "scan_lanes"))
+        if use and hasattr(self.log, "scan_lanes"):
+            with self.profiler.stage("decode"):   # columnar block scan
+                lanes = self.log.scan_lanes(from_offset)
+            last = self.log.next_offset - 1
+            aggs, fired = self.replay_columns(lanes, watermark=watermark)
+            return {"events": lanes.count, "aggregates": len(aggs),
+                    "alerts": len(fired), "last_offset": last,
+                    "columnar": True}
+        stage = self.analytics
+        events: List[Event] = []
+        last = from_offset - 1
+        with self.profiler.stage("decode"):     # disk scan + extraction
+            for off, payload in self.log.scan(from_offset):
+                doc = payload["doc"]
+                events.append((stage.key_fn(doc), stage.time_fn(doc),
+                               stage.value_fn(doc)))
+                last = off
+        aggs, fired = self.replay_events(events, watermark=watermark)
+        return {"events": len(events), "aggregates": len(aggs),
+                "alerts": len(fired), "last_offset": last,
+                "columnar": False}
+
+    def replay_late_events(self, *, watermark: Optional[float] = None,
+                           max_records: Optional[int] = None) -> dict:
+        """Drain the journal's ``late_event`` backlog through the batch
+        path: events the live operator dead-lettered (past lateness) are
+        aggregated into their own windows and evaluated by the same
+        rules, so no observed event is ever silently lost."""
+        if self.journal is None:
+            raise RuntimeError("no DeadLetterJournal attached")
+        cursor = self.journal.first_pending("late_event")
+        if cursor is None:               # index-first: empty backlog
+            return {"events": 0, "aggregates": 0, "alerts": 0}
+        events: List[Event] = []
+        last = cursor
+        with self.profiler.stage("decode"):
+            for off, rec in self.journal.scan("late_event", cursor):
+                if max_records is not None and len(events) >= max_records:
+                    break
+                events.append((str(rec["key"]), float(rec["event_time"]),
+                               float(rec.get("value", 1.0))))
+                last = off + 1
+        if not events:
+            return {"events": 0, "aggregates": 0, "alerts": 0}
+        aggs, fired = self.replay_events(events, watermark=watermark)
+        self.journal.advance("late_event", last)
+        return {"events": len(events), "aggregates": len(aggs),
+                "alerts": len(fired)}
+
+    # ---- observability ------------------------------------------------------
+    def status(self) -> dict:
+        with self._lock:
+            out = {"stats": dict(self.stats)}
+        # per-stage wall-clock breakdown of the batch chain (decode /
+        # pack_events / kernel / unpack / state_merge / redeliver)
+        out["profile"] = self.profiler.snapshot()
+        if self.journal is not None:
+            out["journal"] = self.journal.status()
+            out["pending"] = self.journal.pending()
+        if self.log is not None:
+            out["log"] = self.log.status()
+        return out

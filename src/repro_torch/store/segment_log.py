@@ -1,0 +1,407 @@
+"""Append-only segmented event log — the durable backbone of the
+store/replay plane (the role Kafka/uLog play in Uber's real-time infra:
+one durable log that both the live path and backfill consumers read).
+
+Layout on disk (``dir/``):
+
+  seg-000000000000.jsonl   one JSON record per line, monotonically
+  seg-000000000412.jsonl   increasing global offsets; the file name is
+  ...                      the segment's first offset
+  manifest.json            sealed segments only (name/first/last/records/
+                           bytes), rewritten atomically on every roll or
+                           truncate; the ACTIVE segment is whatever
+                           seg-file the manifest does not list
+
+Record framing: each line is ``{"o": offset, "c": crc32, "d": payload}``
+where ``c`` is the CRC-32 of the canonical (sorted-key, tight-separator)
+JSON encoding of ``d``.  A record is valid only if the line parses AND
+the checksum matches — so a torn write (process killed mid-line, partial
+flush) is detected, not silently mis-read.
+
+Crash tolerance: ``EventLog(dir)`` re-opens an existing log by loading
+the manifest and then scanning the active segment line by line; the
+first invalid line marks a torn tail — the file is physically truncated
+back to the last valid record and appends continue from there.  Sealed
+segments were fsync'd behind an atomic manifest update, so a tear can
+only ever live in the final segment (the kill-and-reopen test asserts
+no record before the tear is lost).
+
+``truncate(upto)`` releases whole sealed segments whose records all lie
+below ``upto`` (segment granularity keeps it O(segments), the standard
+log-compaction unit); offsets never rewind.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import zlib
+from dataclasses import dataclass, field
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+MANIFEST = "manifest.json"
+_SEG_FMT = "seg-{:012d}.jsonl"
+
+
+class CorruptSegmentError(RuntimeError):
+    """A SEALED segment failed validation — unlike a torn active tail
+    (expected after a crash, skipped), this is real corruption."""
+
+
+def _canonical(payload) -> str:
+    return json.dumps(payload, sort_keys=True, separators=(",", ":"))
+
+
+def _crc(payload_json: str) -> int:
+    return zlib.crc32(payload_json.encode("utf-8"))
+
+
+def _encode(offset: int, payload) -> str:
+    d = _canonical(payload)
+    return (f'{{"o":{offset},"c":{_crc(d)},"d":{d}}}\n')
+
+
+def _decode(line: str) -> Optional[Tuple[int, object]]:
+    """-> (offset, payload), or None when the line is torn/corrupt."""
+    if not line.endswith("\n"):
+        return None                      # partial write: no line terminator
+    try:
+        rec = json.loads(line)
+        offset, crc, payload = rec["o"], rec["c"], rec["d"]
+    except (ValueError, KeyError, TypeError):
+        return None
+    if _crc(_canonical(payload)) != crc:
+        return None
+    return int(offset), payload
+
+
+@dataclass
+class Segment:
+    name: str
+    first: int
+    last: int
+    records: int
+    bytes: int
+
+    def as_dict(self) -> dict:
+        return {"name": self.name, "first": self.first, "last": self.last,
+                "records": self.records, "bytes": self.bytes}
+
+
+@dataclass
+class LogStats:
+    appended_records: int = 0
+    appended_bytes: int = 0
+    sealed_segments: int = 0
+    truncated_segments: int = 0
+    truncated_records: int = 0
+    torn_records_skipped: int = 0       # stamped once, at reopen
+
+    def as_dict(self) -> dict:
+        return dict(self.__dict__)
+
+
+class EventLog:
+    """Append-only, segmented, checksummed JSONL log.
+
+      append(batch)       -> (first_offset, last_offset) of the batch
+      scan(from_offset)   -> iterator of (offset, payload)
+      truncate(upto)      -> drop sealed segments entirely below ``upto``
+      close()/reopen      -> crash-tolerant (torn tails skipped)
+
+    Segments roll when the active file reaches ``segment_bytes`` OR has
+    been open for ``segment_age_s`` of caller-supplied time (``tick``;
+    the pipeline drives it from its virtual clock so rolls replay
+    deterministically).  Payloads must be JSON-serializable.
+    """
+
+    def __init__(self, dir_path: str, *, segment_bytes: int = 1 << 20,
+                 segment_age_s: Optional[float] = None, fsync: bool = False):
+        if segment_bytes < 1:
+            raise ValueError("segment_bytes must be >= 1")
+        self.dir = dir_path
+        self.segment_bytes = segment_bytes
+        self.segment_age_s = segment_age_s
+        self.fsync = fsync
+        self.stats = LogStats()
+        self.closed = False
+        self._lock = threading.Lock()
+        self._sealed: List[Segment] = []
+        self._fh = None
+        self._active_name: Optional[str] = None
+        self._active_first = 0            # first offset of the active segment
+        self._active_bytes = 0
+        self._active_records = 0
+        self._active_opened_at: Optional[float] = None
+        self._now = 0.0
+        self.next_offset = 0
+        self.truncated_through = 0        # offsets below this are released
+        self._recovered_records = 0       # found on disk at (re)open
+        os.makedirs(self.dir, exist_ok=True)
+        self._recover()
+        self._recovered_records = (sum(s.records for s in self._sealed)
+                                   + self._active_records)
+
+    # ---- recovery -----------------------------------------------------------
+    def _recover(self) -> None:
+        man = os.path.join(self.dir, MANIFEST)
+        if os.path.exists(man):
+            with open(man, encoding="utf-8") as fh:
+                doc = json.load(fh)
+            self._sealed = [Segment(**s) for s in doc["segments"]]
+            self.truncated_through = doc.get("truncated_through", 0)
+            self.stats.sealed_segments = len(self._sealed)
+        known = {s.name for s in self._sealed}
+        for s in self._sealed:
+            if not os.path.exists(os.path.join(self.dir, s.name)):
+                raise CorruptSegmentError(f"sealed segment missing: {s.name}")
+        self.next_offset = (self._sealed[-1].last + 1 if self._sealed
+                            else self.truncated_through)
+        actives = sorted(n for n in os.listdir(self.dir)
+                         if n.startswith("seg-") and n not in known)
+        # orphans below the truncation floor are segments truncate()
+        # unlisted from the manifest but a crash stopped it unlinking
+        # (kept segments always start at >= truncated_through, so the
+        # filename's first offset is a safe discriminator)
+        for name in [n for n in actives
+                     if int(n[4:16]) < self.truncated_through]:
+            os.remove(os.path.join(self.dir, name))
+            actives.remove(name)
+        if len(actives) > 1:
+            # only the newest can hold a torn tail; older unsealed files
+            # mean the manifest write itself was lost — seal them now by
+            # re-scanning (their contents are still checksummed)
+            for name in actives[:-1]:
+                self._adopt_unsealed(name)
+            actives = actives[-1:]
+        if actives:
+            self._reopen_active(actives[0])
+
+    def _scan_file(self, name: str) -> Tuple[List[Tuple[int, object]], int]:
+        """-> (valid (offset, payload) records, valid byte length)."""
+        out: List[Tuple[int, object]] = []
+        good = 0
+        path = os.path.join(self.dir, name)
+        with open(path, "r", encoding="utf-8", newline="") as fh:
+            for line in fh:
+                rec = _decode(line)
+                if rec is None:
+                    break
+                out.append(rec)
+                good += len(line.encode("utf-8"))
+        return out, good
+
+    def _adopt_unsealed(self, name: str) -> None:
+        recs, good = self._scan_file(name)
+        if not recs:
+            os.remove(os.path.join(self.dir, name))
+            return
+        self._sealed.append(Segment(
+            name=name, first=recs[0][0], last=recs[-1][0],
+            records=len(recs), bytes=good))
+        self.stats.sealed_segments = len(self._sealed)
+        self.next_offset = recs[-1][0] + 1
+        self._write_manifest()
+
+    def _reopen_active(self, name: str) -> None:
+        path = os.path.join(self.dir, name)
+        recs, good = self._scan_file(name)
+        total = os.path.getsize(path)
+        if good < total:
+            # torn tail: drop everything after the last valid record so
+            # the next append lands on a clean line boundary
+            with open(path, "r+b") as fh:
+                fh.truncate(good)
+            self.stats.torn_records_skipped += 1
+        self._active_name = name
+        self._active_first = int(name[4:16])
+        self._active_bytes = good
+        self._active_records = len(recs)
+        # age-roll clock restarts at reopen time, else the recovered
+        # segment would never be sealed by segment_age_s
+        self._active_opened_at = self._now
+        if recs:
+            self.next_offset = recs[-1][0] + 1
+        self._fh = open(path, "a", encoding="utf-8", newline="")
+
+    # ---- manifest (atomic) --------------------------------------------------
+    def _write_manifest(self) -> None:
+        doc = {"segments": [s.as_dict() for s in self._sealed],
+               "truncated_through": self.truncated_through}
+        tmp = os.path.join(self.dir, MANIFEST + ".tmp")
+        with open(tmp, "w", encoding="utf-8") as fh:
+            json.dump(doc, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, os.path.join(self.dir, MANIFEST))
+
+    # ---- append / roll ------------------------------------------------------
+    def _open_segment(self) -> None:
+        self._active_first = self.next_offset
+        self._active_name = _SEG_FMT.format(self.next_offset)
+        self._active_bytes = 0
+        self._active_records = 0
+        self._active_opened_at = self._now
+        self._fh = open(os.path.join(self.dir, self._active_name), "a",
+                        encoding="utf-8", newline="")
+
+    def _seal_active(self) -> None:
+        if self._fh is None or self._active_records == 0:
+            return
+        self._fh.flush()
+        os.fsync(self._fh.fileno())       # a sealed segment is durable
+        self._fh.close()
+        self._fh = None
+        self._sealed.append(Segment(
+            name=self._active_name, first=self._active_first,
+            last=self.next_offset - 1, records=self._active_records,
+            bytes=self._active_bytes))
+        self.stats.sealed_segments = len(self._sealed)
+        self._active_name = None
+        self._active_bytes = 0
+        self._active_records = 0
+        self._active_opened_at = None
+        self._write_manifest()
+
+    def append(self, batch: Sequence) -> Tuple[int, int]:
+        """Durably append ``batch`` (JSON payloads); -> (first, last)
+        offsets assigned.  Empty batches are a no-op returning the
+        current ``(next_offset, next_offset - 1)`` sentinel."""
+        with self._lock:
+            if self.closed:
+                # appending would silently orphan the closed active
+                # segment's records from scan(); fail loud instead
+                raise RuntimeError(
+                    f"EventLog {self.dir!r} is closed; reopen it "
+                    f"(EventLog(dir)) to continue appending")
+            if not batch:
+                return self.next_offset, self.next_offset - 1
+            if self._fh is None:
+                self._open_segment()
+            first = self.next_offset
+            for payload in batch:
+                line = _encode(self.next_offset, payload)
+                self._fh.write(line)
+                n = len(line.encode("utf-8"))
+                self._active_bytes += n
+                self._active_records += 1
+                self.stats.appended_bytes += n
+                self.stats.appended_records += 1
+                self.next_offset += 1
+            self._fh.flush()
+            if self.fsync:
+                os.fsync(self._fh.fileno())
+            if self._active_bytes >= self.segment_bytes:
+                self._seal_active()
+            return first, self.next_offset - 1
+
+    def tick(self, now: float) -> None:
+        """Advance the log's (virtual) clock; rolls the active segment
+        once it has been open for ``segment_age_s``."""
+        with self._lock:
+            self._now = max(self._now, now)
+            if (self.segment_age_s is not None and self._fh is not None
+                    and self._active_records > 0
+                    and self._active_opened_at is not None
+                    and self._now - self._active_opened_at
+                    >= self.segment_age_s):
+                self._seal_active()
+
+    # ---- read side ----------------------------------------------------------
+    def scan(self, from_offset: int = 0) -> Iterator[Tuple[int, object]]:
+        """Yield (offset, payload) for every record with offset >=
+        ``from_offset``, checksum-verified, in offset order.  Corruption
+        inside a SEALED segment raises; a torn active tail just ends the
+        scan (it was already truncated away at reopen, but a concurrent
+        tear is tolerated the same way)."""
+        with self._lock:
+            sealed = list(self._sealed)
+            active = self._active_name
+            if self._fh is not None:
+                self._fh.flush()
+        for seg in sealed:
+            if seg.last < from_offset:
+                continue
+            recs, good = self._scan_file(seg.name)
+            if len(recs) != seg.records:
+                raise CorruptSegmentError(
+                    f"{seg.name}: {len(recs)} valid of {seg.records} records")
+            for off, payload in recs:
+                if off >= from_offset:
+                    yield off, payload
+        if active is not None:
+            recs, _ = self._scan_file(active)
+            for off, payload in recs:
+                if off >= from_offset:
+                    yield off, payload
+
+    def truncate(self, upto: int) -> int:
+        """Release sealed segments whose LAST offset is below ``upto``;
+        returns the number of records freed.  Whole segments only — the
+        first kept segment may still contain offsets < upto.
+
+        Crash ordering: the manifest is rewritten (atomically) BEFORE
+        the segment files are unlinked.  A kill in between leaves
+        orphan files the manifest no longer references — ``_recover``
+        deletes any such file below ``truncated_through`` — never a
+        manifest pointing at missing data."""
+        freed = 0
+        with self._lock:
+            doomed = [s for s in self._sealed if s.last < upto]
+            if not doomed:
+                return 0
+            self._sealed = [s for s in self._sealed if s.last >= upto]
+            self.stats.sealed_segments = len(self._sealed)
+            self.truncated_through = max(self.truncated_through,
+                                         max(s.last for s in doomed) + 1)
+            self._write_manifest()
+            for seg in doomed:
+                os.remove(os.path.join(self.dir, seg.name))
+                freed += seg.records
+                self.stats.truncated_segments += 1
+                self.stats.truncated_records += seg.records
+        return freed
+
+    # ---- observability / lifecycle -----------------------------------------
+    @property
+    def segments(self) -> int:
+        return len(self._sealed) + (1 if self._active_name else 0)
+
+    def pending_bytes(self, from_offset: int = 0) -> int:
+        """Approximate bytes at or after ``from_offset`` still on disk
+        (whole segments whose last record reaches the offset)."""
+        with self._lock:
+            total = sum(s.bytes for s in self._sealed
+                        if s.last >= from_offset)
+            if self._active_name and self.next_offset - 1 >= from_offset:
+                total += self._active_bytes
+            return total
+
+    def __len__(self) -> int:
+        """Records still on disk (appended minus truncated)."""
+        return (self.stats.appended_records + self._recovered_records
+                - self.stats.truncated_records)
+
+    def status(self) -> dict:
+        with self._lock:
+            return {"next_offset": self.next_offset,
+                    "truncated_through": self.truncated_through,
+                    "segments": len(self._sealed)
+                    + (1 if self._active_name else 0),
+                    "active_bytes": self._active_bytes,
+                    **self.stats.as_dict()}
+
+    def close(self) -> None:
+        with self._lock:
+            self.closed = True
+            if self._fh is not None:
+                self._fh.flush()
+                os.fsync(self._fh.fileno())
+                self._fh.close()
+                self._fh = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
