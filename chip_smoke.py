@@ -6,19 +6,32 @@
 Phases, one JSON line each:
 
   device   torch / CUDA versions and the card's name and power limit
-  build    nvcc of every kernel source in src/repro_torch/kernels/csrc
+  build    nvcc of every kernel source in src/repro_torch/kernels/csrc,
+           all started together
   kernel   window_reduce's contract cases, then the kernel against its
            plain PyTorch version on the card at the main path's shapes
-  replay   one virtual day of the paper's deployment (200k sources at
-           the simulator's 2 items/source/hour with its diurnal curve,
-           the 4 default channels, a numeric value field) appended to a
-           ColumnarEventLog, sealed, and replayed through
+  replay   one virtual day of the paper's deployment, cut to 100k of its
+           200k sources (the simulator's 2 items/source/hour with its
+           diurnal curve, the 4 default channels, a numeric value field)
+           appended to a ColumnarEventLog, sealed, and replayed through
            StorePlane(device="cuda") into 300 s windows and alert rules;
            held against a pure-numpy count and against device="cpu"
   query    cold and mixed ranges through QueryPlane(device="cuda"),
            held against device="cpu"
-  timing   CUDA-event times of the kernel, its plain version and the
+  timing   CUDA-event times of window_reduce, its plain version and the
            two-call PyTorch yardstick, beside the memory-bound floor
+  flash_kernel
+           flash_attention's contract cases on the card against its
+           plain version (dtype x mask x GQA group x head dim x length)
+  flash_timing
+           CUDA-event times of flash_attention, its plain version and
+           scaled_dot_product_attention at Qwen2.5-3B's prefill shapes,
+           beside the bound
+  serve    Qwen2.5-3B at full width and depth (random weights from
+           --seed) behind ServeEngine(device="cuda"): 16 requests of 7
+           to 2,999 prompt tokens, 32 greedy tokens each; the six short
+           ones replayed on the same weights through
+           ServeEngine(device="cpu") and held token for token
   kernels  one summary line per kernel
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
@@ -34,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +56,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 DEVICE = "cuda"                  # the main path's device (baseline: "cpu")
+KERNEL_SOURCES = ("window_reduce", "flash_attention")   # csrc/<name>.cu
 
 DAY_S = 86_400.0
 WINDOW_S = 300.0                 # pipeline default: 5-minute tumbling windows
@@ -52,19 +67,53 @@ SEGMENT_BYTES = 1 << 20          # PipelineConfig.segment_bytes
 BLOCK_ROWS = 2048                # PipelineConfig.columnar_block_rows
 APPEND_BATCH = 512               # documents per log append
 TEXT_POOL = 4096                 # distinct (title, body) texts drawn from
-SOURCES = 200_000                # the paper's fleet (bench_alertmix.py)
+FLEET = 200_000                  # the paper's fleet (bench_alertmix.py)
+SOURCES = 100_000                # cut to half (see CUT) to fit the run
+CUT = {"sources": SOURCES, "of": FLEET,
+       "why": "append and seal of the full day took 286-404 s on the host; "
+              "half the fleet keeps the script under 600 s with the serve "
+              "phase"}
 SOURCE_DAY_SEGMENTS = 1_000_000
 MIN_EVENTS = 2_332_800           # never replay a smaller day than this
 HOT_WINDOWS = 144                # query retention: the newest 12 h per key
 
-# H100 SXM (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) flop/s
+# H100 SXM (NVIDIA data sheet, dense rates): HBM3 bytes/s, f32 (non-tensor)
+# flop/s and bf16 tensor-core flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 # kernel vs plain version: sums are taken in other orders (the plain
 # version's CUDA index_add_ uses atomics), so each segment's sum may
 # differ by this fraction of its absolute sum, sumsq of its own value
 RTOL = 1e-4
 ATOL = 1e-6
+
+# flash_attention vs its plain version, per dtype: the tolerances of
+# tests/test_kernels.py:29 (the kernel folds its softmax tile by tile, the
+# plain version over the whole row, and rounds p to bf16 at other maxima)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_TIMED_S = (128, 512, 2048)           # Qwen2.5-3B prefill lengths
+
+SERVE_ARCH = "qwen2.5-3b"
+SHORT_PROMPTS = (7, 19, 45, 64, 100, 128)  # also replayed on the CPU
+LONG_PROMPTS = (129, 257, 515, 777, 1024, 1333, 1801, 2048, 2500, 2999)
+PRIORITY_REQUESTS = 3                      # 20% of 16, rounded down
+MAX_NEW = 32
+# Card vs CPU greedy streams: where they part, the CPU's top-2 logit margin
+# at that step must be within this share of the step's largest |logit|:
+# bf16 keeps 8 significant bits, and the two devices round the bf16
+# products of 36 layers at other places, so near-ties may flip.
+NEAR_TIE = 2e-2
+PROFILED_STEPS = 4               # decode steps under torch.profiler
+# f32 card vs CPU logits, as a share of their largest |logit|: the same sums
+# in other orders through 36 layers (1.25e-4 measured on an H100)
+F32_TOL = 1e-3
+# The f32 engine check: requests as (cut of the longest short prompt,
+# max_new_tokens).  The first eight fill every slot; the 128 and 100 token
+# ones finish after 3 tokens, which admits the last two into their used
+# slots while the other six decode on.
+F32_REQUESTS = ((7, 6), (19, 6), (45, 6), (64, 6), (100, 3), (128, 3),
+                (33, 6), (90, 6), (11, 4), (25, 4))
 
 _WORDS = (
     "market news alert update report breaking global local tech sports "
@@ -246,6 +295,427 @@ def time_shape(wr, plain, values, seg_ids, num_segments, dev) -> dict:
                          >= flops / PEAK_F32_FLOP_PER_S else "operations")}
 
 
+# ---- flash attention -----------------------------------------------------
+
+def flash_contract_cases(fa, plain, dev) -> dict:
+    """flash_attention's contract on the card: every dtype x mask x GQA
+    group x head dim x length, then every prompt length the serve phase
+    prefills at Qwen2.5-3B's shape (B = 1, 16 query and 2 kv heads of 128,
+    causal); each launched twice (the bytes must repeat) and held against
+    the plain version at FLASH_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {str(t): 0.0 for t in FLASH_TOL}
+    cases = []
+    for dtype in FLASH_TOL:
+        for causal, window in ((True, 0), (False, 0), (True, 64)):
+            for hq, hkv in ((4, 4), (4, 2), (16, 2)):       # groups 1, 2, 8
+                for d in (16, 80, 128):
+                    for s in (1, 37, 2048):
+                        cases.append((dtype, 1 if s > 64 else 2, s, hq, hkv,
+                                      d, causal, window))
+        for s in SHORT_PROMPTS + LONG_PROMPTS:
+            cases.append((dtype, 1, s, 16, 2, 128, True, 0))
+    for dtype, b, s, hq, hkv, d, causal, window in cases:
+        tol = FLASH_TOL[dtype]
+        q, k, v = (torch.randn(b, s, h, d, generator=gen,
+                               device=dev).to(dtype) for h in (hq, hkv, hkv))
+        o = fa(q, k, v, causal=causal, window=window)
+        o2 = fa(q, k, v, causal=causal, window=window)
+        p = plain(q, k, v, causal=causal, window=window).float()
+        err = (o.float() - p).abs()
+        ok = bool((err <= tol + tol * p.abs()).all())
+        same = torch.equal(o, o2)
+        check(ok and same and o.shape == q.shape,
+              f"flash_attention {dtype} b={b} causal={causal} "
+              f"window={window} hq={hq} hkv={hkv} d={d} s={s}: max err "
+              f"{float(err.max())}, identical relaunch {same}")
+        worst[str(dtype)] = max(worst[str(dtype)], float(err.max()))
+    return {"cases": len(cases),
+            "serve_lengths": list(SHORT_PROMPTS + LONG_PROMPTS),
+            "max_abs_err": worst}
+
+
+def flash_bound(s: int, hq: int, hkv: int, d: int, itemsize: int) -> dict:
+    """Least time of one causal pass on the card: flops of the live
+    (query, key) pairs over the bf16 tensor-core rate, or q, k, v and o
+    moved once over HBM, whichever is larger."""
+    flops = 4 * hq * d * s * (s + 1) // 2
+    nbytes = itemsize * (2 * s * hq * d + 2 * s * hkv * d)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def flash_timing(fa, plain, dev) -> dict:
+    """Kernel, plain version (plain, kernel, kernel, plain) and, as a
+    yardstick only, scaled_dot_product_attention at Qwen2.5-3B's prefill
+    shapes: B = 1, 16 query and 2 kv heads of 128, bf16, causal."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for s in FLASH_TIMED_S:
+        q = torch.randn(1, s, 16, 128, device=dev, dtype=torch.bfloat16)
+        k = torch.randn(1, s, 2, 128, device=dev, dtype=torch.bfloat16)
+        v = torch.randn(1, s, 2, 128, device=dev, dtype=torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        p1 = cuda_ms(lambda: plain(q, k, v))
+        k1 = cuda_ms(lambda: fa(q, k, v))
+        k2 = cuda_ms(lambda: fa(q, k, v))
+        p2 = cuda_ms(lambda: plain(q, k, v))
+        lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                   enable_gqa=True))
+        out[s] = {"ms": (k1 + k2) / 2, "ms_runs": [k1, k2],
+                  "plain_ms": (p1 + p2) / 2, "plain_ms_runs": [p1, p2],
+                  "library_ms": lib, **flash_bound(s, 16, 2, 128, 2)}
+    return out
+
+
+# ---- serving -------------------------------------------------------------
+
+class Traced:
+    """The model as a ServeEngine sees it, with every prefill and decode
+    call timed on the host clock between two synchronisations, and, for
+    the requests whose prompts are in ``record`` ({prompt: rid}), each
+    greedy step's logits kept (prefill gives a request's first token,
+    each decode step one more for every active slot).  With ``follow``
+    ({rid: tokens}) the engine is handed, in place of each kept row, a
+    one-hot on the followed stream's token at that step, so it decodes
+    that stream (teacher forcing); ``cache_dtype`` sets the engine's
+    cache type."""
+
+    def __init__(self, model, dev, record, *, follow=None,
+                 cache_dtype=None):
+        self.model, self.dev, self.record = model, dev, record
+        self.recorded = set(record.values())
+        self.follow, self.cache_dtype = follow, cache_dtype
+        self.engine = None
+        self.prefill_s, self.decode_s = [], []
+        self.prefilled_at = {}           # prompt -> engine clock, synced
+        self.logits = {}                 # rid -> [f32 CPU row per token]
+        self.live = []                   # recorded active slots per step
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def _keep(self, logits, rows):
+        """Keep each (row, rid)'s logits; the engine's argmax then reads
+        the followed stream's token where ``follow`` is set."""
+        for row, rid in rows:
+            self.logits.setdefault(rid, []).append(logits[row].float().cpu())
+        if self.follow is None:
+            return logits
+        forced = torch.zeros_like(logits)
+        for row, rid in rows:
+            forced[row, self.follow[rid][len(self.logits[rid]) - 1]] = 1.0
+        return forced
+
+    def init_cache(self, batch_size, max_seq, *, device="cuda"):
+        if self.cache_dtype is None:
+            return self.model.init_cache(batch_size, max_seq, device=device)
+        from repro_torch.models import transformer as T
+        return T.init_cache(self.model.cfg, batch_size, max_seq,
+                            dtype=self.cache_dtype, device=device)
+
+    def prefill(self, params, batch, **kw):
+        self._sync()
+        t0 = time.perf_counter()
+        last, cache = self.model.prefill(params, batch, **kw)
+        self._sync()
+        self.prefill_s.append((batch["tokens"].shape[1],
+                               time.perf_counter() - t0))
+        prompt = tuple(batch["tokens"][0].tolist())
+        self.prefilled_at[prompt] = time.monotonic()
+        rid = self.record.get(prompt)
+        return self._keep(last, [] if rid is None else [(0, rid)]), cache
+
+    def decode_step(self, params, cache, tokens):
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.model.decode_step(params, cache, tokens)
+        self._sync()
+        self.decode_s.append(time.perf_counter() - t0)
+        eng = self.engine
+        rows = [(slot, req.rid) for slot, req in enumerate(eng.slot_req)
+                if req is not None and eng.active[slot]
+                and req.rid in self.recorded]
+        self.live.append(len(rows))
+        return self._keep(logits, rows), cache
+
+
+def make_requests(seed: int, vocab: int):
+    """16 requests, prompts from HashTokenizer over random words: six of
+    SHORT_PROMPTS tokens and ten of LONG_PROMPTS, in a seeded order, three
+    of them priority 0."""
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.serve.engine import Request
+    tok = HashTokenizer(vocab)
+    rng = np.random.default_rng(seed + 2)
+    lengths = list(SHORT_PROMPTS) + list(LONG_PROMPTS)
+    order = rng.permutation(len(lengths))
+    prio = set(rng.choice(len(lengths), PRIORITY_REQUESTS,
+                          replace=False).tolist())
+    reqs = []
+    for rid, i in enumerate(order.tolist()):
+        n_words = lengths[i] - 1                  # plus the bos token
+        words = " ".join(f"{_WORDS[a]}-{b}" for a, b in zip(
+            rng.integers(0, len(_WORDS), n_words),
+            rng.integers(0, 1000, n_words)))
+        ids = tok.encode(words, add_eos=False)
+        check(len(ids) == lengths[i], f"prompt of {len(ids)} tokens")
+        reqs.append(Request(rid=rid, prompt_tokens=ids,
+                            max_new_tokens=MAX_NEW,
+                            priority=0 if rid in prio else 1))
+    return reqs
+
+
+def _pair_gap(card: torch.Tensor, cpu: torch.Tensor) -> float:
+    """How far the card moves the CPU's top-2 margin at one step."""
+    a, b = torch.topk(cpu, 2).indices.tolist()
+    return abs(float((card[a] - card[b]) - (cpu[a] - cpu[b])))
+
+
+def compare_streams(card_reqs, card_logits, cpu_reqs, cpu_logits) -> dict:
+    """Per request: the card's and the CPU's greedy tokens; where they
+    part, the CPU's top-2 margin at that step against NEAR_TIE of the
+    step's largest |logit|; while they agree, the largest gap between the
+    two devices' logits and between their top-2 margins."""
+    out = {}
+    for rid, cpu_req in cpu_reqs.items():
+        a, b = card_reqs[rid].output_tokens, cpu_req.output_tokens
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None if len(a) == len(b) else min(len(a), len(b)))
+        agree = len(a) if first is None else first
+        pairs = list(zip(card_logits[rid][:agree], cpu_logits[rid][:agree]))
+        gaps = [float((g - c).abs().max()) for g, c in pairs]
+        margin_gaps = [_pair_gap(g, c) for g, c in pairs]
+        row = {"prompt": len(cpu_req.prompt_tokens), "tokens": len(b),
+               "equal": first is None, "first_diff": first,
+               "max_logit_gap_while_equal": max(gaps) if gaps else None,
+               "max_margin_gap_while_equal":
+                   max(margin_gaps) if margin_gaps else None}
+        if first is not None:
+            c = cpu_logits[rid][first]
+            top2 = torch.topk(c, 2).values
+            row["margin"] = float(top2[0] - top2[1])
+            row["tolerance"] = NEAR_TIE * float(c.abs().max())
+            row["near_tie"] = row["margin"] <= row["tolerance"]
+        out[rid] = row
+    return out
+
+
+def serve_phase(seed: int, dev, fa) -> dict:
+    """Qwen2.5-3B at full width and depth behind ServeEngine(device=dev),
+    then the short requests again through ServeEngine(device="cpu") on
+    the same weights."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_arch(SERVE_ARCH).model
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = ServeConfig(max_batch=8, max_seq_len=4096, replenish_after=2,
+                       replenish_timeout_s=0.02)
+    reqs = make_requests(seed, cfg.vocab)
+    short = {tuple(r.prompt_tokens): r.rid for r in reqs
+             if len(r.prompt_tokens) <= SHORT_PROMPTS[-1]}
+    longest_short = max(short, key=len)
+    traced = Traced(model, dev, short)
+    eng = ServeEngine(traced, params, scfg, eos_id=-1, device=dev)
+    traced.engine = eng
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    fa.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.arrived_at = time.monotonic()           # the engine's clock
+        check(eng.submit(r), f"request {r.rid} refused")
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+
+    vp = params.embed_tokens.shape[0]
+    check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} requests done")
+    check(all(len(r.output_tokens) == MAX_NEW and
+              all(0 <= t < vp for t in r.output_tokens) for r in done),
+          "every request gives MAX_NEW tokens in the vocabulary")
+    check(launches == cfg.n_layers * len(reqs),
+          f"{launches} flash_attention launches, want "
+          f"{cfg.n_layers} x {len(reqs)}")
+    # a first token is ready when its request's prefill has synchronised
+    ttft = {p: [traced.prefilled_at[tuple(r.prompt_tokens)] - r.arrived_at
+                for r in done if r.priority == p] for p in (0, 1)}
+    # the kernel's share of prefill: each prompt's length timed alone on
+    # the card, once per layer, over the synchronised prefill time
+    kernel_ms = 0.0
+    for r in reqs:
+        s = len(r.prompt_tokens)
+        q = torch.randn(1, s, cfg.n_heads, cfg.resolved_head_dim, device=dev,
+                        dtype=torch.bfloat16)
+        kv = torch.randn(1, s, cfg.n_kv_heads, cfg.resolved_head_dim,
+                         device=dev, dtype=torch.bfloat16)
+        kernel_ms += cfg.n_layers * cuda_ms(lambda: fa(q, kv, kv), reps=5,
+                                            warmup=1)
+    prefill_s = sum(t for _, t in traced.prefill_s)
+    decode_s = sum(traced.decode_s)
+    result = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": sum(p.numel() for p in params.parameters()),
+        "init_s": init_s, "requests": len(reqs), "done": len(done),
+        "priority_requests": PRIORITY_REQUESTS,
+        "prompt_lengths": [len(r.prompt_tokens) for r in reqs],
+        "prefill_tokens": sum(len(r.prompt_tokens) for r in reqs),
+        "decode_steps": eng.steps, "tokens_generated": eng.tokens_generated,
+        "tokens_per_s": eng.tokens_generated / wall, "wall_s": wall,
+        "ttft_s": {("priority" if p == 0 else "normal"): {
+            "mean": float(np.mean(v)), "max": float(np.max(v))}
+            for p, v in ttft.items()},
+        "flash_attention_launches": launches,
+        "prefill_calls": len(traced.prefill_s), "prefill_s": prefill_s,
+        "prefill_s_by_length": list(traced.prefill_s),
+        "decode_calls": len(traced.decode_s), "decode_s": decode_s,
+        "other_s": wall - prefill_s - decode_s,
+        "decode_ms_per_step": 1e3 * decode_s / max(1, len(traced.decode_s)),
+        "kernel_share_of_prefill": kernel_ms / 1e3 / prefill_s,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+
+    result["decode_profile"] = profile_decode(
+        eng, [Request(rid=1000 + i, prompt_tokens=list(longest_short),
+                      max_new_tokens=PROFILED_STEPS + 2)
+              for i in range(scfg.max_batch)])
+
+    # the check: the short requests again, on the CPU, same weights
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    tree = params.to_tree()
+    tree_cpu = _tree_map(lambda t: t.cpu(), tree)
+    cpu_params = model.params_from_tree(tree_cpu)
+    traced_cpu = Traced(model, cpu, short)
+    eng_cpu = ServeEngine(traced_cpu, cpu_params, scfg, eos_id=-1,
+                          device=cpu)
+    traced_cpu.engine = eng_cpu
+    cpu_reqs = {}
+    for r in reqs:
+        if r.rid in traced.recorded:
+            cpu_reqs[r.rid] = Request(rid=r.rid,
+                                      prompt_tokens=list(r.prompt_tokens),
+                                      max_new_tokens=MAX_NEW,
+                                      priority=r.priority)
+            eng_cpu.submit(cpu_reqs[r.rid])
+    eng_cpu.run_until_drained()
+    streams = compare_streams({r.rid: r for r in done}, traced.logits,
+                              cpu_reqs, traced_cpu.logits)
+    result["cpu_check"] = {"requests": len(cpu_reqs), "near_tie": NEAR_TIE,
+                           "seconds": time.perf_counter() - t0,
+                           "streams": streams}
+    del eng_cpu, traced_cpu, cpu_params
+    t0 = time.perf_counter()
+    result["f32_check"] = f32_check(model, scfg, tree, tree_cpu,
+                                    longest_short, dev)
+    result["f32_check"]["seconds"] = time.perf_counter() - t0
+    return result
+
+
+def f32_check(model, scfg, tree_card, tree_cpu, prompt, dev) -> dict:
+    """The same weights in f32 behind two ServeEngines, on the CPU and on
+    the card, with f32 caches and a clock that stands still (admission by
+    finished count only): the F32_REQUESTS fill all eight slots, two finish
+    early and two more are admitted into their used slots.  The CPU decodes
+    greedily; the card is fed the CPU's tokens.  Free of bf16 rounding,
+    every step's logits must agree up to f32 sums taken in other orders;
+    the largest gap is reported against the logits' scale."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    prompts = {tuple(prompt[:n]): rid
+               for rid, (n, _) in enumerate(F32_REQUESTS)}
+    check(len(prompts) == len(F32_REQUESTS), "f32 check prompts distinct")
+    sides = []
+    follow = None
+    for tree, d in ((tree_cpu, torch.device("cpu")), (tree_card, dev)):
+        params = model.params_from_tree(_tree_map(lambda t: t.float(), tree))
+        traced = Traced(model, d, prompts, follow=follow,
+                        cache_dtype=torch.float32)
+        eng = ServeEngine(traced, params, scfg, eos_id=-1,
+                          clock=lambda: 0.0, device=d)
+        traced.engine = eng
+        for rid, (n, new) in enumerate(F32_REQUESTS):
+            check(eng.submit(Request(rid=rid, prompt_tokens=list(prompt[:n]),
+                                     max_new_tokens=new)),
+                  f"f32 request {rid} refused")
+        done = {r.rid: r.output_tokens for r in eng.run_until_drained()}
+        check(len(done) == len(F32_REQUESTS), "f32 check: every request done")
+        sides.append((traced.logits, done, traced.live))
+        follow = done                     # the card follows the CPU
+        del eng, params
+    (cpu_logits, cpu_done, live), (card_logits, card_done, card_live) = sides
+    check(card_done == cpu_done and card_live == live,
+          "f32 check: the card followed the CPU")
+    check(max(live) == scfg.max_batch, f"f32 check: live slots {live}")
+    worst, scale, rows, own = 0.0, 0.0, 0, 0
+    for rid, toks in cpu_done.items():
+        check(len(cpu_logits[rid]) == len(card_logits[rid]) == len(toks),
+              f"f32 check: request {rid} kept one row per token")
+        for c, g, t in zip(cpu_logits[rid], card_logits[rid], toks):
+            worst = max(worst, float((c - g).abs().max()))
+            scale = max(scale, float(c.abs().max()))
+            own += int(g.argmax()) == t
+            rows += 1
+    return {"requests": len(F32_REQUESTS), "slots": scfg.max_batch,
+            "live_slots_per_step": live, "rows": rows, "card_argmax_equal": own,
+            "max_logit_gap": worst, "logit_scale": scale,
+            "relative_gap": worst / scale}
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile_decode(eng, reqs) -> dict:
+    """Device busy share of steady decode with every slot full: the
+    requests are admitted and prefilled by one step, then PROFILED_STEPS
+    decode steps run under torch.profiler; the kernels' device time over
+    the window's wall time (the profiler's own host cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        check(eng.submit(r), "profiled request refused")
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e6
+    eng.run_until_drained()
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    return {"steps": PROFILED_STEPS, "active_slots": len(reqs),
+            "wall_s": wall, "device_busy_s": busy,
+            "busy_share": busy / wall if busy else "not measured",
+            "top_kernels_ms": [[e.key[:80], _device_us(e) / 1e3, e.count]
+                               for e in top]}
+
+
+def _tree_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
 # ---- main path -----------------------------------------------------------
 
 def make_stage(alerts_mod):
@@ -309,6 +779,8 @@ def main(argv=None) -> int:
     import repro_torch.alerts as alerts_mod
     from repro_torch.alerts.batch import pack_columns
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.window_reduce import (window_reduce,
                                                    window_reduce_plain)
     from repro_torch.query import AggQuery, QueryPlane
@@ -317,6 +789,8 @@ def main(argv=None) -> int:
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum in f32, as the reference's dots accumulate
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 1. device
     smi = subprocess.run(
@@ -328,12 +802,16 @@ def main(argv=None) -> int:
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lines = build.build("window_reduce")
-    emit("build", seconds=time.perf_counter() - t0, sources=["window_reduce"],
-         ptxas=[ln.strip() for ln in lines
-                if "Used" in ln or "entry function" in ln])
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = dict(zip(KERNEL_SOURCES, pool.map(build.build,
+                                                  KERNEL_SOURCES)))
+    emit("build", seconds=time.perf_counter() - t0,
+         sources=list(KERNEL_SOURCES),
+         ptxas={name: [ln.strip() for ln in lines
+                       if "Used" in ln or "entry function" in ln]
+                for name, lines in built.items()})
 
     # data for the day (set-up, made in bulk from --seed)
     t0 = time.perf_counter()
@@ -406,7 +884,7 @@ def main(argv=None) -> int:
         alerts_ok = alert_keys(stage.alerts) == alert_keys(cpu_stage.alerts)
         finite = all(math.isfinite(x) for r in agg_rows(got_aggs)
                      for x in r[3:])
-        emit("replay", sources=SOURCES, cut=None, events=n_events,
+        emit("replay", sources=SOURCES, cut=CUT, events=n_events,
              documents=n_events, aggregates=len(got_aggs),
              alerts=len(stage.alerts), by_rule=stage.sink.by_rule,
              launches=replay_launches, generate_s=generate_s,
@@ -475,8 +953,27 @@ def main(argv=None) -> int:
     emit("timing", card=smi, l2="warm: inputs fresh from the host, as on "
          "the main path", shapes=timing)
 
-    # 7. kernels
+    # 7. flash_attention's contract, then its times at the prefill shapes
+    flash = flash_contract_cases(flash_attention, flash_attention_plain, dev)
+    emit("flash_kernel", tol={str(k): v for k, v in FLASH_TOL.items()},
+         **flash)
+    flash_times = flash_timing(flash_attention, flash_attention_plain, dev)
+    emit("flash_timing", card=smi, shapes=flash_times)
+
+    # 8. serve: Qwen2.5-3B through ServeEngine on the card, checked on CPU
+    serve = serve_phase(args.seed, dev, flash_attention)
+    emit("serve", **serve)
+    check(serve["f32_check"]["relative_gap"] <= F32_TOL,
+          f"f32 card vs CPU logits: {serve['f32_check']}")
+    for rid, row in serve["cpu_check"]["streams"].items():
+        check(row["equal"] or row["near_tie"],
+              f"request {rid}: card and CPU streams part at token "
+              f"{row['first_diff']} with margin {row.get('margin')} above "
+              f"the near-tie tolerance {row.get('tolerance')}")
+
+    # 9. kernels
     main_shape = timing["channel_day"]
+    flash_main = flash_times[FLASH_TIMED_S[-1]]
     print(json.dumps({"kernels": [{
         "name": "window_reduce",
         "route": "cuda",
@@ -489,6 +986,20 @@ def main(argv=None) -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "shape": "channel_day",
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "launches": serve["flash_attention_launches"],
+        "max_abs_err": max(flash["max_abs_err"].values()),
+        "ms": flash_main["ms"],
+        "plain_ms": flash_main["plain_ms"],
+        "bound_ms": flash_main["bound_ms"],
+        "bound_by": flash_main["bound_by"],
+        "library_ms": flash_main["library_ms"],
+        "shape": f"B=1 S={FLASH_TIMED_S[-1]} Hq=16 Hkv=2 D=128 bf16 causal",
     }]}), flush=True)
     for line in smi:
         print(line)

@@ -13,9 +13,10 @@ stateful per (rule, key) but windows arrive exactly once (the operator's
 contract), so rule history never double-counts.
 
 ``AlertSink`` keeps a bounded in-memory log of fired alerts with
-per-rule totals and an optional hook called at emit time.  (The JAX
-package's sink also fans alerts out to a push ``SubscriptionHub``; that
-surface arrives with the port's delivery plane.)
+per-rule totals, pushes each alert to a ``SubscriptionHub`` so consumers
+stream alerts as they fire (``subscribe()``), and calls an optional hook
+at emit time.  (The JAX package routes the log and the hub through a
+``FanOutSink``; that wrapper arrives with the pipeline slice.)
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.alerts.windows import WindowAggregate
+from repro_torch.delivery import Subscription, SubscriptionHub
 
 _OPS: Dict[str, Callable[[float, float], bool]] = {
     ">": operator.gt, ">=": operator.ge,
@@ -62,8 +64,9 @@ class Alert:
 class AlertSink:
     """Fired-alert log: a bounded in-memory list (``fired`` keeps the
     newest ``keep_last``), complete per-rule totals (``by_rule``,
-    ``total``) and an optional ``hook`` called with every alert.  Rules
-    call ``emit(alert)``."""
+    ``total``), a push ``hub`` that hands every alert to its subscribers,
+    and an optional ``hook`` called with every alert.  Rules call
+    ``emit(alert)``."""
 
     def __init__(self, hook: Optional[Callable[[Alert], None]] = None,
                  keep_last: int = 10_000):
@@ -72,6 +75,7 @@ class AlertSink:
         self.fired: List[Alert] = []
         self.by_rule: Dict[str, int] = {}
         self.total = 0
+        self.hub = SubscriptionHub(name="alert-hub")
         self._lock = threading.Lock()
 
     def emit(self, alert: Alert) -> None:
@@ -81,12 +85,20 @@ class AlertSink:
             self.fired.append(alert)
             if len(self.fired) > self.keep_last:
                 del self.fired[: len(self.fired) - self.keep_last]
+        self.hub.emit([alert])
         if self.hook is not None:
             self.hook(alert)
 
+    def subscribe(self, callback: Optional[Callable[[Alert], None]] = None,
+                  *, capacity: int = 256, key_fn=None) -> Subscription:
+        """Push surface: callback fires at emit time, or iterate the
+        returned Subscription (bounded per-rule buffers)."""
+        return self.hub.subscribe(callback, capacity=capacity, key_fn=key_fn)
+
     def snapshot(self) -> dict:
         with self._lock:
-            return {"total": self.total, "by_rule": dict(self.by_rule)}
+            return {"total": self.total, "by_rule": dict(self.by_rule),
+                    "subscribers": self.hub.subscriber_count}
 
 
 class AlertRule:

@@ -2,8 +2,8 @@
 
   * no module of repro_torch, nor chip_smoke.py, imports jax or repro
     (an AST walk over the sources);
-  * a replay and a cold query driven through repro_torch with
-    device="cpu" leave neither jax nor repro in sys.modules;
+  * a replay, a cold query and a serve run driven through repro_torch
+    with device="cpu" leave neither jax nor repro in sys.modules;
   * an entry point left on its default device ("cuda") raises when there
     is no card, instead of running on the CPU.
 """
@@ -68,6 +68,20 @@ _DRIVE = textwrap.dedent("""
         q = plane.query(AggQuery(channel="news", start=0.0, end=1200.0))
         assert q.source == "mixed", q.source
         store.close()
+
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_arch("qwen2.5-3b").smoke
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(model, params, ServeConfig(max_batch=2, max_seq_len=64),
+                      eos_id=-1, device="cpu")
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt_tokens=[1, 5 + i, 9], max_new_tokens=3))
+    assert len(eng.run_until_drained()) == 3
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     print("LEAKED", leaked)
@@ -115,9 +129,40 @@ def _query_engine(tmp_path):
     QueryEngine(MaterializedStore())
 
 
+def _model_init(tmp_path):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    import torch
+    build_model(get_arch("qwen2.5-3b").smoke).init_params(torch.Generator())
+
+
+def _model_cache(tmp_path):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    build_model(get_arch("qwen2.5-3b").smoke).init_cache(1, 8)
+
+
+def _serve_engine(tmp_path):
+    from repro_torch.config import ServeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    import torch
+    model = build_model(get_arch("qwen2.5-3b").smoke)
+    params = model.init_params(torch.Generator(), "cpu")
+    ServeEngine(model, params, ServeConfig(max_batch=1, max_seq_len=8))
+
+
+def _serve_launcher(tmp_path):
+    from repro_torch.launch.serve import main
+    main(["--requests", "1", "--max-new", "1"])
+
+
 @pytest.mark.parametrize("entry", [_replay_launch, _reduce_launch,
                                    _kernel_launch, _store_plane,
-                                   _query_engine],
+                                   _query_engine, _model_init,
+                                   _model_cache, _serve_engine,
+                                   _serve_launcher],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_default_device_raises_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
